@@ -17,7 +17,6 @@ has the full story).
 
 import json
 import os
-import sys
 import time
 
 BDIR = "/tmp/gxz_bench4"   # corpus v2 (adversarial: repeat-family genome,
@@ -353,7 +352,7 @@ def gen_longread_sam(path, target_mb, rng, genome):
 
 def gen_vcf(path, target_mb, rng):
     """Multi-sample VCF: GT:AD:DP:GQ:PL samples + VEP-style CSQ INFO
-    (annotator depth per VERDICT: AD/PL cross-tag predictions + structured
+    (annotator depth: AD/PL cross-tag predictions + structured
     CSQ must have real material to work on)."""
     import numpy as np
     nsamp = 200
@@ -537,13 +536,6 @@ def main():
         gen_longread_sam(lr, SIDE_MB // 2, np.random.default_rng(13),
                          big_genome)
 
-    from genozip_tpu import codecs
-    # device rANS: probed once per host and cached — enabled only where the
-    # device beats the native coder end-to-end (GXZ_DEVICE_RANS overrides)
-    tuned = codecs.autotune_device_rans()
-    print(f"# device rANS autotune: {'ON' if tuned else 'off (native wins)'}",
-          file=sys.stderr)
-
     # warmup (compile/alloc caches) on a slice
     from genozip_tpu.zip_pipeline import zip_file, zip_pair
     warm = os.path.join(BDIR, "warm.fastq")
@@ -620,38 +612,7 @@ def main():
             out[f"{nm}_txt_MBps"] = round(txt_mbps, 2)
     for nm, mbps in piz.items():
         out[f"{nm}_unzip_MBps"] = round(mbps, 2)
-    # per-config round-over-round history (VERDICT r4 item 2: perf claims
-    # must be falsifiable) — prior rounds' BENCH_r*.json live in the repo
-    # root; the corpus generators are seed-pinned so numbers compare
-    import glob
-    import re as _re
-    hist = {}
-    here = os.path.dirname(os.path.abspath(__file__))
-    for f in sorted(glob.glob(os.path.join(here, "BENCH_r*.json"))):
-        m = _re.search(r"BENCH_r(\d+)", f)
-        if not m:
-            continue
-        try:
-            parsed = json.load(open(f)).get("parsed") or {}
-        except Exception:
-            continue
-        rnd = f"r{int(m.group(1)):02d}"
-        for k, v in parsed.items():
-            if k.endswith(("_MBps", "_ratio")):
-                hist.setdefault(k, {})[rnd] = v
     out["corpus"] = "v2"
-    if hist:
-        print("# round-over-round history (this run = current; r03/r04 ran"
-              " on corpus v1 — v2 is adversarial: repeat-family genome,"
-              " mixed qname flavors, annotator-soup VCF, primary+supp"
-              " qname pairs in BAM):", file=sys.stderr)
-        for k in sorted(hist):
-            cur = out.get(k)
-            row = "  ".join(f"{r}={v}" for r, v in sorted(hist[k].items()))
-            print(f"#   {k:24s} {row}  now={cur}", file=sys.stderr)
-        out["history"] = {k: v for k, v in hist.items()
-                          if k in ("fastq_MBps", "vcf_ratio", "bam_ratio",
-                                   "fastq_ratio", "vcf_MBps", "bam_MBps")}
     print(json.dumps(out))
 
 

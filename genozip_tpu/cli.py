@@ -11,7 +11,7 @@ import sys
 
 def build_parser():
     p = argparse.ArgumentParser(prog="gxzip",
-                                description="TPU-native genomic compressor")
+                                description="genomic compressor")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     z = sub.add_parser("zip", help="compress")
@@ -155,6 +155,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from . import setup_compile_cache
+    setup_compile_cache()
     # env fallback (reference parity: GENOZIP_REFERENCE, genozip.h:85)
     if getattr(args, "reference", None) is None and os.environ.get("GXZ_REFERENCE"):
         args.reference = os.environ["GXZ_REFERENCE"]

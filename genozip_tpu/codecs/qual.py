@@ -7,7 +7,7 @@ its sequence/position context, then entropy-code each channel with its own
 (adaptive) model. Their C implementations are serial per-byte state
 machines feeding an arithmetic coder.
 
-TPU-first redesign: channels are restricted to functions of SEQ + position
+Vectorized redesign: channels are restricted to functions of SEQ + position
 ONLY (never of previous QUAL bytes). Since SEQ always reconstructs before
 QUAL, the channel of every byte is recomputable at PIZ *before* any QUAL
 byte is decoded — so the transform is a pure permutation (stable sort by

@@ -2,7 +2,7 @@
 
 Reference parity: src/context.c (ctx_clone :469 / ctx_merge_in_vb_ctx :1082),
 src/b250.c (word-index streams), src/dict_io.c (global dict output). The
-TPU-first redesign: a VB segs *whole columns* at once (ragged numpy ops — no
+vectorized redesign: a VB segs *whole columns* at once (ragged numpy ops — no
 per-line loop), dictionaries are deduped vectorized (pad + np.unique) and
 merged into the global dict deterministically in VB order (the reference's
 per-context merge mutex with vb1-first becomes an ordered reduction), and

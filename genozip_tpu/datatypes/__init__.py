@@ -1,7 +1,7 @@
 """Datatype plugin registry.
 
 Reference parity: src/data_types.h:50-161 DataTypeProperties vtable (~45
-callbacks per datatype) — reduced here to the callbacks the TPU engine
+callbacks per datatype) — reduced here to the callbacks this engine
 actually inverts control through: VB boundary alignment, txt-header split,
 whole-VB vectorized seg, whole-VB vectorized recon, plus optional segconf
 scanning and special recon callbacks.

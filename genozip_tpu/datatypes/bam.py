@@ -3,7 +3,7 @@ input layer — correctness bar is byte-exact round-trip of the uncompressed
 BAM stream, like the reference's digest over txt data).
 
 Reference parity: src/bam_seg.c (record parsing), src/sam.h record layout,
-src/bam_seq.c (4-bit SEQ codes). TPU-first redesign: the native scanner
+src/bam_seq.c (4-bit SEQ codes). Vectorized redesign: the native scanner
 (native/gxz_native.cpp gxz_bam_scan) walks the serial block_size chain; all
 field extraction is then vectorized numpy over record offsets — no per-record
 python. Alignment-record layout (SAMv1 spec §4.2):

@@ -2,7 +2,7 @@
 
 Reference parity: src/fastq.c (line-quad parsing :1002, seg :1249),
 src/fastq_seq.c (SEQ methods), src/fastq_qual.c, src/fastq_desc.c.
-TPU-first redesign: the whole VB is parsed in one pass (newline scan →
+Vectorized redesign: the whole VB is parsed in one pass (newline scan →
 line-quad columns); DESC goes through the vectorized tokenizer (seg.py)
 instead of per-line qname flavor matching; SEQ is one concatenated stream
 (ACGT 2-bit pack codec; aligner path added separately); QUAL one stream

@@ -1,7 +1,7 @@
 """SAM datatype plugin (text alignment records).
 
 Reference parity: src/sam_seg.c (field seg), src/sam_fields.c (aux),
-src/sam_cigar.c, src/sam_qual.c, src/sam_header.c. TPU-first redesign:
+src/sam_cigar.c, src/sam_qual.c, src/sam_header.c. Vectorized redesign:
 whole-VB column split of the 11 fixed fields + raw aux remainder; QNAME and
 CIGAR through the vectorized tokenizer (digit runs -> int streams), aux
 through the tokenizer in single-stream mode; SEQ/QUAL as concatenated streams
@@ -610,7 +610,7 @@ class SamDT(DataType):
         return excl - base
 
     def _flat_ops(self, cigar, n: int):
-        """Flattened CIGAR op table — the TPU-first replacement for the
+        """Flattened CIGAR op table — the vectorized replacement for the
         per-template walks (reference src/sam_cigar.c per-line parse):
         EVERY row's ops live in flat arrays, so seg/recon/MD-NM walks are
         O(total bases) vectorized passes with no per-unique-CIGAR python —

@@ -1,7 +1,7 @@
 """VCF datatype plugin.
 
 Reference parity: src/vcf_seg.c, src/vcf_info.c, src/vcf_samples.c,
-src/vcf_header.c. TPU-first redesign: tab-split whole-VB columns; CHROM/REF/
+src/vcf_header.c. Vectorized redesign: tab-split whole-VB columns; CHROM/REF/
 ALT/FILTER/FORMAT as dict contexts; POS delta-coded; ID/QUAL/INFO through the
 vectorized tokenizer; the sample matrix through the tokenizer in single-stream
 mode (one value stream — the genotype-matrix PBWT codec supersedes this for GT

@@ -3,7 +3,7 @@ only a reference to the alignment; SEQ/QUAL come from the BAM at PIZ.
 
 Reference parity: src/deep.h (qname/seq/qual hash entries), src/sam_deep.c:208
 sam_deep_zip_merge, src/fastq_deep.c:680 fastq_deep_seg_SEQ. Simplified
-TPU-first scheme: the index maps qname -> primary alignment (seq, qual,
+vectorized scheme: the index maps qname -> primary alignment (seq, qual,
 orientation) built from raw BAM records with the same vectorized field
 extraction as the BAM datatype; FASTQ matching is a dict lookup per read plus
 whole-column vectorized byte comparison; PIZ rebuilds the index from the

@@ -2,7 +2,7 @@
 
 Reference parity: src/sections.h (section headers), src/zfile.c:288-366
 (zfile_compress_*), src/zfile.c:899 (backward footer read). Re-designed
-minimally for the TPU build (our own format — no genozip interop): every
+minimally for this engine (our own format — no genozip interop): every
 section is [64-byte header | compressed payload]; the file ends with a
 compressed section index + fixed 40-byte tail that is read backwards at PIZ.
 

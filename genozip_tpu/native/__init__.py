@@ -1,10 +1,15 @@
 """ctypes loader for the native host runtime (gxz_native.cpp).
 
-Builds libgxz.so on first use with g++ (cached beside the source; rebuilt when
-the source is newer). Falls back gracefully — callers must check `available()`.
+Builds libgxz.so on first use with g++ -march=native, beside the source. The
+build is keyed to the source and to the host CPU (a stamp file records both),
+so a library that travelled with the tree from another machine is rebuilt
+rather than trusted. Falls back gracefully — callers must check
+`available()`; with GXZ_REQUIRE_NATIVE set, a failed build or load raises
+with the compiler's message instead.
 """
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -14,17 +19,55 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "gxz_native.cpp")
 _LIB = os.path.join(_DIR, "libgxz.so")
+_STAMP = _LIB + ".key"
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build():
+def _build_key() -> str:
+    """Source digest + the host CPU's model and feature flags."""
+    h = hashlib.sha256(open(_SRC, "rb").read())
+    try:
+        with open("/proc/cpuinfo") as f:
+            h.update("".join(ln for ln in f if ln.startswith(
+                ("model name", "flags")))[:8192].encode())
+    except OSError:
+        pass
+    return h.hexdigest()
+
+
+def _have_libdeflate() -> bool:
+    """Whether the compiler finds libdeflate's header on this host."""
+    r = subprocess.run(["g++", "-E", "-x", "c++", "-", "-o", os.devnull],
+                       input="#include <libdeflate.h>\n", text=True,
+                       capture_output=True)
+    return r.returncode == 0
+
+
+def _build(key: str):
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC,
-           "-o", _LIB + ".tmp", "-lz", "-ldeflate"]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(_LIB + ".tmp", _LIB)
+           "-o", tmp, "-lz"]
+    if _have_libdeflate():
+        cmd += ["-DGXZ_LIBDEFLATE", "-ldeflate"]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError("native build failed: " + " ".join(cmd) + "\n"
+                           + r.stderr[-4000:])
+    os.replace(tmp, _LIB)
+    with open(_STAMP + f".{os.getpid()}", "w") as f:
+        f.write(key)
+    os.replace(_STAMP + f".{os.getpid()}", _STAMP)
+
+
+def _stamp() -> str | None:
+    try:
+        with open(_STAMP) as f:
+            return f.read()
+    except OSError:
+        return None
 
 
 def get():
@@ -38,10 +81,13 @@ def get():
         if os.environ.get("GXZ_NO_NATIVE"):   # force the numpy fallbacks
             return None
         try:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-                _build()
+            key = _build_key()
+            if not os.path.exists(_LIB) or _stamp() != key:
+                _build(key)
             lib = ctypes.CDLL(_LIB)
+            for fn in (lib.gxz_simd_bits, lib.gxz_has_libdeflate):
+                fn.restype = ctypes.c_int
+                fn.argtypes = []
             lib.gxz_rans_encode.restype = ctypes.c_int64
             lib.gxz_rans_encode.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
@@ -227,11 +273,11 @@ def get():
                                             ctypes.c_int, ctypes.c_void_p,
                                             ctypes.c_int64]
             _lib = lib
-        except Exception:
+        except Exception as e:
             if os.environ.get("GXZ_REQUIRE_NATIVE"):
                 raise RuntimeError(
                     "native runtime failed to build/load "
-                    "(GXZ_REQUIRE_NATIVE is set)")
+                    f"(GXZ_REQUIRE_NATIVE is set): {e}") from e
             _lib = None
     return _lib
 
@@ -240,8 +286,18 @@ def available() -> bool:
     return get() is not None
 
 
+def simd_bits() -> int:
+    """Vector width of the compiled rANS cores: 512 (AVX-512) or 0."""
+    return get().gxz_simd_bits()
+
+
+def has_libdeflate() -> bool:
+    """False when the build uses zlib in libdeflate's place."""
+    return bool(get().gxz_has_libdeflate())
+
+
 def zlib_compress(data, level: int = 6) -> bytes:
-    """zlib-format compress via libdeflate (~2-3x stdlib zlib)."""
+    """zlib-format compress via libdeflate (~2-3x stdlib zlib), or zlib."""
     lib = get()
     a = np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) \
         else data
@@ -250,7 +306,7 @@ def zlib_compress(data, level: int = 6) -> bytes:
     out = np.empty(cap, np.uint8)
     r = lib.gxz_zlib_compress(a.ctypes.data if n else 0, n, level,
                               out.ctypes.data, cap)
-    assert r > 0, "libdeflate zlib compress failed"
+    assert r > 0, "native zlib compress failed"
     return out[:r].tobytes()
 
 
@@ -261,7 +317,7 @@ def zlib_decompress(blob, out_len: int) -> bytes:
     out = np.empty(max(out_len, 1), np.uint8)
     r = lib.gxz_zlib_decompress(a.ctypes.data, a.shape[0], out.ctypes.data,
                                 out_len)
-    assert r == out_len, f"libdeflate zlib decompress failed ({r})"
+    assert r == out_len, f"native zlib decompress failed ({r})"
     return out[:out_len].tobytes()
 
 

@@ -8,6 +8,8 @@
 // JAX/Pallas owns device compute).
 //
 // Build: g++ -O3 -march=native -shared -fPIC gxz_native.cpp -o libgxz.so -lz
+//        [-DGXZ_LIBDEFLATE -ldeflate]
+// (native/__init__.py builds it on first use, once per host CPU).
 
 #include <cstdint>
 #include <cstring>
@@ -17,7 +19,86 @@
 #include <memory>
 #include <thread>
 #include <zlib.h>
+
+#ifdef GXZ_LIBDEFLATE
 #include <libdeflate.h>
+#else
+// Hosts without libdeflate: zlib stand-ins for the libdeflate calls below.
+// Same stream formats (other compressed bytes); levels above 9 are refused,
+// so libdeflate-only settings (exact re-emission of libdeflate-written BGZF)
+// fail instead of producing other bytes.
+namespace {
+struct libdeflate_compressor { int level; };
+struct libdeflate_decompressor { int unused; };
+enum libdeflate_result { LIBDEFLATE_SUCCESS = 0, LIBDEFLATE_BAD_DATA = 1 };
+
+libdeflate_compressor* libdeflate_alloc_compressor(int level) {
+    return level >= 1 && level <= 9 ? new libdeflate_compressor{level}
+                                    : nullptr;
+}
+void libdeflate_free_compressor(libdeflate_compressor* c) { delete c; }
+libdeflate_decompressor* libdeflate_alloc_decompressor() {
+    return new libdeflate_decompressor{0};
+}
+void libdeflate_free_decompressor(libdeflate_decompressor* d) { delete d; }
+
+size_t zlib_deflate(int level, int wbits, const void* in, size_t n,
+                    void* out, size_t cap) {
+    z_stream zs;
+    memset(&zs, 0, sizeof zs);
+    if (deflateInit2(&zs, level, Z_DEFLATED, wbits, 8,
+                     Z_DEFAULT_STRATEGY) != Z_OK)
+        return 0;
+    zs.next_in = (Bytef*)in;
+    zs.avail_in = (uInt)n;
+    zs.next_out = (Bytef*)out;
+    zs.avail_out = (uInt)cap;
+    int rc = deflate(&zs, Z_FINISH);
+    size_t w = cap - zs.avail_out;
+    deflateEnd(&zs);
+    return rc == Z_STREAM_END ? w : 0;
+}
+
+libdeflate_result zlib_inflate(int wbits, const void* in, size_t n, void* out,
+                               size_t cap, size_t* actual) {
+    z_stream zs;
+    memset(&zs, 0, sizeof zs);
+    if (inflateInit2(&zs, wbits) != Z_OK) return LIBDEFLATE_BAD_DATA;
+    zs.next_in = (Bytef*)in;
+    zs.avail_in = (uInt)n;
+    zs.next_out = (Bytef*)out;
+    zs.avail_out = (uInt)cap;
+    int rc = inflate(&zs, Z_FINISH);
+    *actual = cap - zs.avail_out;
+    inflateEnd(&zs);
+    return rc == Z_STREAM_END ? LIBDEFLATE_SUCCESS : LIBDEFLATE_BAD_DATA;
+}
+
+size_t libdeflate_zlib_compress(libdeflate_compressor* c, const void* in,
+                                size_t n, void* out, size_t cap) {
+    return zlib_deflate(c->level, 15, in, n, out, cap);
+}
+size_t libdeflate_deflate_compress(libdeflate_compressor* c, const void* in,
+                                   size_t n, void* out, size_t cap) {
+    return zlib_deflate(c->level, -15, in, n, out, cap);
+}
+libdeflate_result libdeflate_zlib_decompress(libdeflate_decompressor*,
+                                             const void* in, size_t n,
+                                             void* out, size_t cap,
+                                             size_t* actual) {
+    return zlib_inflate(15, in, n, out, cap, actual);
+}
+libdeflate_result libdeflate_deflate_decompress(libdeflate_decompressor*,
+                                                const void* in, size_t n,
+                                                void* out, size_t cap,
+                                                size_t* actual) {
+    return zlib_inflate(-15, in, n, out, cap, actual);
+}
+uint32_t libdeflate_crc32(uint32_t crc, const void* p, size_t n) {
+    return (uint32_t)crc32(crc, (const Bytef*)p, (uInt)n);
+}
+}  // namespace
+#endif
 
 namespace {
 
@@ -347,6 +428,24 @@ int64_t rans_decode_core_avx512(uint8_t* plane, int64_t n, int64_t K, int N,
 
 }  // namespace
 #endif  // GXZ_AVX512
+
+// Vector width (bits) of the rANS cores this build selected at compile time.
+int gxz_simd_bits() {
+#ifdef GXZ_AVX512
+    return 512;
+#else
+    return 0;
+#endif
+}
+
+// 1 when built against libdeflate, 0 when its zlib stand-ins are in use.
+int gxz_has_libdeflate() {
+#ifdef GXZ_LIBDEFLATE
+    return 1;
+#else
+    return 0;
+#endif
+}
 
 // ---------------------------------------------------------------------------
 // rANS order-0 / order-1 encode.  Two cache-friendly passes: (A) per-lane
@@ -2021,6 +2120,9 @@ int64_t gxz_bgzf_deflate_exact(const uint8_t* data, int64_t len,
                                int level, const uint8_t* hdr, int hdr_len,
                                int nthreads, uint8_t* out, int64_t cap,
                                int use_libdeflate) {
+#ifndef GXZ_LIBDEFLATE
+    if (use_libdeflate) return -12;   // needs the real libdeflate
+#endif
     std::vector<int64_t> doff(nblocks + 1);
     int64_t acc = 0;
     int64_t max_isz = 1;

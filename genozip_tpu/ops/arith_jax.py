@@ -11,8 +11,8 @@ Renorm byte planes come back (K, R, N); the host compacts them into the
 decoder-order stream with the shared arith_np.assemble_stream.
 
 Throughput note: order-1's per-step (N, 256) cumsum makes this
-bandwidth-bound on the model tables; the intended device use is the
-batched many-streams form (one kernel, many sections) like rans_pallas.
+bandwidth-bound on the model tables; a device use would batch many streams
+into one kernel, as ops/rans_gpu.py does for rANS.
 """
 
 from functools import partial

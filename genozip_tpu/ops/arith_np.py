@@ -3,13 +3,13 @@
 This is the normative specification of the GXZ adaptive-arithmetic stream
 format ("ARITH-W32"). It fills the role of the reference's adaptive
 arithmetic coder (/root/reference/src/htscodecs/arith_dynamic.c +
-c_range_coder.h + c_simple_model.h) with a TPU-first redesign: instead of
+c_range_coder.h + c_simple_model.h) with a wide-vector redesign: instead of
 ONE serial coder with a per-symbol-updated model, we run N independent
 carryless range-coder lanes (Subbotin-style, 32-bit) over contiguous symbol
 chunks in LOCKSTEP, all lanes sharing ONE adaptive model whose update is
 batched per step (the histogram of the N symbols coded at that step).
 Every step is a handful of wide vector ops; the model update is a
-scatter-add — both map directly onto TPU vector units (ops/arith_jax.py
+scatter-add — both map directly onto wide vector units (ops/arith_jax.py
 is the device twin and must produce byte-identical streams).
 
 Adaptivity granularity is therefore N symbols instead of 1 — a deliberate

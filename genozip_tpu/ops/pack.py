@@ -1,6 +1,6 @@
 """Bit packing ops (1/2/4-bit) — numpy host model + jnp device versions.
 
-TPU-native replacement for the reference's Bits 2-bit arrays and htscodecs PACK
+Vectorized replacement for the reference's Bits 2-bit arrays and htscodecs PACK
 transform (reference src/bits.c, src/htscodecs/rANS_static4x16pr.c PACK):
 values are packed little-endian within each byte (value i occupies bits
 [(i*w) % 8, (i*w) % 8 + w) of byte (i*w)//8).

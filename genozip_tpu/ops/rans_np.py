@@ -1,10 +1,10 @@
 """Wide-interleaved rANS entropy coder — bit-exact numpy reference model.
 
 This is the normative specification of the GXZ rANS stream format ("RANS-W32x16").
-The JAX/Pallas device implementations (ops/rans_jax.py) must produce byte-identical
-streams. Design goals (vs the reference implementation's 4-way interleaved rANS in
+The native, JAX (ops/rans_jax.py) and Pallas GPU (ops/rans_gpu.py) coders must produce
+byte-identical streams. Design goals (vs the reference implementation's 4-way interleaved rANS in
 /root/reference/src/htscodecs/rANS_static4x16pr.c): thousands of independent lanes so
-every step is one wide vector op on TPU, a *single* shared word stream with renorm
+every step is one wide vector op, a *single* shared word stream with renorm
 words in deterministic (step, lane) order (zero per-lane index overhead, cf.
 "Interleaved entropy coders", arXiv:1402.3392), and at most ONE 16-bit renorm per
 symbol so renormalisation is a masked op, not a loop.

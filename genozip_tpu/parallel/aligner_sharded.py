@@ -1,12 +1,12 @@
 """Multi-chip sharded seed-hash aligner (jnp twin of ref/aligner.py).
 
 Sharding design (the scaling-book recipe: pick a mesh, annotate shardings,
-let collectives ride ICI):
+let XLA insert the collectives):
   - mesh ('dp', 'mp'): reads are data-parallel over 'dp'; the genome and the
     refhash — the multi-GB state — are sharded over 'mp'.
   - refhash lookup: slot h is owned by exactly one 'mp' rank
     (h // slots_per_shard); each rank answers its own slots and a psum over
-    'mp' broadcasts the hit to everyone (ICI all-reduce, no host).
+    'mp' broadcasts the hit to everyone (device all-reduce, no host).
   - genome window scoring: each rank holds a contiguous genome slab plus a
     read-length halo; a candidate's window lives in exactly one slab, that
     rank scores it, and a psum over 'mp' reconciles.

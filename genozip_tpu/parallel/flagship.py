@@ -1,17 +1,18 @@
 """Flagship device compute: the jittable FASTQ VB-encode step, single-chip and
 multi-chip (shard_map over a Mesh).
 
-This is the TPU replacement for the reference's per-VB compute thread
+A device replacement for the reference's per-VB compute thread
 (src/zip.c:510 zip_compress_one_vb): 2-bit SEQ packing (src/codec_acgt.c) +
 wide-interleaved rANS of QUAL — with the *global* frequency/stats
-reconciliation expressed as collectives (psum over the mesh), which is the
-TPU-native analog of the reference's mutex-guarded global context merge
-(src/context.c:938 ctx_merge_in_one_vctx).
+reconciliation expressed as collectives (psum over the mesh), the device
+analog of the reference's mutex-guarded global context merge
+(src/context.c:938 ctx_merge_in_one_vctx). Off the ZIP path: used by
+__graft_entry__.py, scaling_bench.py and tests/test_multichip.py.
 
 Mesh axes: 'dp' = data-parallel over reads (VB rows), 'sp' = sequence-parallel
 over read positions. Every (dp, sp) block encodes its own set of rANS lanes —
 lanes are fully independent, so the only cross-device traffic is the psum'd
-histogram (ICI-friendly); per-shard compressed sizes return sharded and the
+histogram; per-shard compressed sizes return sharded and the
 host sums them.
 """
 

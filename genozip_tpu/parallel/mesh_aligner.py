@@ -27,7 +27,9 @@ class MeshAligner:
         from . import aligner_sharded
 
         devices = jax.devices()
-        nd = min(n_devices or len(devices), len(devices))
+        nd = n_devices or len(devices)
+        if nd > len(devices):
+            raise ValueError(f"--mesh {nd}: only {len(devices)} devices")
         mp = mp or max(nd // 2, 1)
         dp = max(nd // mp, 1)
         self.dp, self.mp = dp, mp

@@ -28,7 +28,9 @@ class ShardedPizDecoder:
         import jax
         from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
         devices = jax.devices()
-        self.D = min(n_devices or len(devices), len(devices))
+        self.D = n_devices or len(devices)
+        if self.D > len(devices):
+            raise ValueError(f"dp={self.D}: only {len(devices)} devices")
         self.mesh = Mesh(np.asarray(devices[: self.D]), ("dp",))
         self.min_size = min_size
         self._P = P
@@ -42,71 +44,47 @@ class ShardedPizDecoder:
             import jax
             sh = self._NS(self.mesh, self._P("dp"))
 
-            def batch(words, tab, cum_row, ns):
-                empty2 = jax.numpy.zeros((256, 512), np.float32)
-                return jax.vmap(
-                    lambda w, t, cr, n: rans_jax._decode_core(
-                        w, t, empty2, cr, K, N, n, order))(
-                            words, tab, cum_row, ns)
+            def batch(words, ns, tabs, s2s):
+                return jax.vmap(lambda w, n, t, q: rans_jax._decode_core(
+                    w, n, t, q, K, N, order))(words, ns, tabs, s2s)
 
             f = self._fns[key] = jax.jit(batch, in_shardings=(sh,) * 4,
                                          out_shardings=sh)
         return f
 
     def decode_sections(self, items):
-        """items: list of framed rANS streams (order-0 rides the mesh;
-        others fall back to the host decoder). Streams sharing the (K, N)
-        lane layout batch into ONE dp-sharded launch — the batch dim is
-        partitioned over the 'dp' mesh axis. Returns payload bytes ==
+        """items: list of framed rANS streams. Streams of at least min_size
+        symbols that share the (K, N, order) lane layout batch into ONE
+        dp-sharded launch — the batch dim is partitioned over the 'dp' mesh
+        axis; smaller ones decode on the host. Returns payload bytes ==
         rans_np.decode for each."""
         import jax.numpy as jnp
         out = [None] * len(items)
         groups = {}
-        metas = []
-        for i, buf in enumerate(items):
-            buf = memoryview(buf)
-            logN, order = buf[0], buf[1]
-            n = int.from_bytes(buf[2:6], "little")
-            metas.append((logN, order, n))
-            if order != 0 or n < self.min_size:
-                out[i] = rans_np.decode(buf)
+        parsed = [rans_jax.decode_tables(buf) for buf in items]
+        for i, (N, order, n, *_) in enumerate(parsed):
+            if n < self.min_size:
+                out[i] = rans_np.decode(items[i])
                 continue
-            N = 1 << logN
-            K = rans_jax.lane_layout(n, N)[0]
-            groups.setdefault((K, N), []).append(i)
-        for (K, N), idxs in groups.items():
-            parsed = []
-            for i in idxs:
-                buf = memoryview(items[i])
-                n = metas[i][2]
-                off = 6
-                freq, off = rans_np._freqs_deserialize(buf, off)
-                cum = np.concatenate(
-                    [[0], np.cumsum(freq)[:-1]]).astype(np.uint32)
-                tab = np.stack([freq, cum], axis=1).astype(np.float32)
-                words = np.frombuffer(buf[off:], dtype="<u2")
-                parsed.append((n, tab, cum.astype(np.float32), words))
+            K = rans_np.lane_layout(n, N)[0]
+            groups.setdefault((K, N, order), []).append(i)
+        for (K, N, order), idxs in groups.items():
             # pad the batch to a multiple of D for even dp sharding
-            B = len(parsed)
-            Bp = (B + self.D - 1) // self.D * self.D
-            wmax = max(p[3].shape[0] for p in parsed)
-            wb = 1 << 12
-            while wb < wmax:
-                wb <<= 1
+            Bp = (len(idxs) + self.D - 1) // self.D * self.D
+            wb = rans_jax.bucket(max(parsed[i][5].shape[0] for i in idxs))
             wordsb = np.zeros((Bp, wb), "<u2")
-            tabb = np.zeros((Bp, 256, 2), np.float32)
-            cumb = np.zeros((Bp, 256), np.float32)
             nsb = np.zeros(Bp, np.int32)
-            for j, (n, tab, cumf, words) in enumerate(parsed):
-                wordsb[j, :words.shape[0]] = words
-                tabb[j] = tab
-                cumb[j] = cumf
-                nsb[j] = n
-            fn = self._fn(K, N, 0)
-            res = np.asarray(fn(jnp.asarray(wordsb), jnp.asarray(tabb),
-                                jnp.asarray(cumb), jnp.asarray(nsb)))
+            tabb = np.zeros((Bp, parsed[idxs[0]][3].shape[0]), np.uint32)
+            s2sb = np.zeros((Bp, parsed[idxs[0]][4].shape[0]), np.uint8)
             for j, i in enumerate(idxs):
-                out[i] = res[j][: metas[i][2]].tobytes()
+                _, _, n, etab, s2s, words = parsed[i]
+                wordsb[j, :words.shape[0]] = words
+                nsb[j], tabb[j], s2sb[j] = n, etab, s2s
+            res = np.asarray(self._fn(K, N, order)(
+                jnp.asarray(wordsb), jnp.asarray(nsb), jnp.asarray(tabb),
+                jnp.asarray(s2sb)))
+            for j, i in enumerate(idxs):
+                out[i] = res[j][: parsed[i][2]].tobytes()
         return out
 
 

@@ -5,7 +5,7 @@ over pthreads (src/dispatcher.c:544) with a mutex-guarded global dict merge
 (src/context.c:938). Here:
 
 - ShardedZipEncoder: a batch of VBs' section payloads rides ONE jitted,
-  vmapped, dp-sharded kernel (ops/rans_jax._encode_device_dyn) — XLA
+  vmapped, dp-sharded kernel (ops/rans_jax._encode_core) — XLA
   partitions the batch dimension over the 'dp' mesh axis, so each device
   entropy-codes its own VB's sections. Output streams are BIT-IDENTICAL to
   the host coder's (rans_np spec), so a dp-N archive equals the
@@ -15,7 +15,7 @@ over pthreads (src/dispatcher.c:544) with a mutex-guarded global dict merge
   its novel-word hash list; hashes are laid out in VB order (the
   deterministic merge order that replaces the reference's vb1-first
   mutex), the jit all-gathers them (P('dp') -> replicated output forces
-  XLA to insert the all-gather over ICI), and every device computes the
+  XLA to insert the all-gather), and every device computes the
   SAME first-seen global index assignment with a sort + segment-min —
   no host loop.
 """
@@ -39,7 +39,9 @@ class ShardedZipEncoder:
         import jax
         from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
         devices = jax.devices()
-        self.D = min(n_devices or len(devices), len(devices))
+        self.D = n_devices or len(devices)
+        if self.D > len(devices):
+            raise ValueError(f"--dp {self.D}: only {len(devices)} devices")
         self.mesh = Mesh(np.asarray(devices[: self.D]), ("dp",))
         self.min_size = min_size
         self._P = P
@@ -56,80 +58,42 @@ class ShardedZipEncoder:
         out = [None] * len(items)
         groups = {}
         for i, (payload, order) in enumerate(items):
-            n = len(payload)
-            N = rans_np.choose_num_lanes(n)
+            N = rans_np.choose_num_lanes(len(payload))
             groups.setdefault((N, order), []).append(i)
         for (N, order), idxs in groups.items():
             Kmax = _round_up(
                 max((len(items[i][0]) + N - 1) // N for i in idxs) or 1, 64)
-            D = self.D
-            rows = _round_up(len(idxs), D)
+            rows = _round_up(len(idxs), self.D)
             data = np.zeros((rows, Kmax * N), np.uint8)
             ns = np.zeros(rows, np.int32)
-            tab = np.zeros((rows, 256, 2), np.float32)
-            tab2 = np.zeros((rows, 256, 512), np.float32) if order else \
-                np.zeros((rows, 1, 1), np.float32)
+            tabs = np.zeros((rows, 65536 if order else 256), np.uint32)
             ftabs = [b""] * rows
             for r, i in enumerate(idxs):
                 payload = np.frombuffer(items[i][0], np.uint8)
-                n = payload.shape[0]
-                data[r, :n] = payload
-                ns[r] = n
-                if order == 0:
-                    freq, cum, ftabs[r] = rans_jax._tables_order0(payload)
-                    tab[r] = np.stack([freq, cum], axis=1)
-                else:
-                    K = (n + N - 1) // N
-                    f2, c2, ftabs[r] = rans_jax._tables_order1_host(
-                        payload, K, N)
-                    tab2[r] = np.concatenate([f2, c2], axis=1)
-            if order:
-                fn = self._fn_o1(Kmax, N)
-                words, totals = fn(jnp.asarray(data), jnp.asarray(ns),
-                                   jnp.asarray(tab2))
-            else:
-                fn = self._fn_o0(Kmax, N)
-                words, totals = fn(jnp.asarray(data), jnp.asarray(ns),
-                                   jnp.asarray(tab))
+                data[r, :payload.shape[0]] = payload
+                ns[r] = payload.shape[0]
+                tabs[r], ftabs[r] = rans_jax.encode_tables(payload, N, order)
+            words, totals = self._fn(Kmax, N, order)(
+                jnp.asarray(data), jnp.asarray(ns), jnp.asarray(tabs))
             words = np.asarray(words)
             totals = np.asarray(totals)
             for r, i in enumerate(idxs):
-                n = int(ns[r])
                 body = words[r, : int(totals[r])].astype("<u2").tobytes()
-                header = bytes([int(np.log2(N)), order]) + \
-                    n.to_bytes(4, "little") + ftabs[r]
-                out[i] = header + body
+                out[i] = rans_jax.header(N, order, ns[r], ftabs[r]) + body
         return out
 
-    def _fn_o0(self, Kmax: int, N: int):
-        key = (Kmax, N, 0, "v")
+    def _fn(self, Kmax: int, N: int, order: int):
+        key = (Kmax, N, order)
         f = self._fns.get(key)
         if f is None:
             import jax
             sh = self._NS(self.mesh, self._P("dp"))
-            empty2 = jax.numpy.zeros((256, 512), np.float32)
 
-            def batch0(data, ns, tab):
-                return jax.vmap(lambda d, n, t: rans_jax._encode_device_dyn(
-                    d, n, t, empty2, Kmax=Kmax, N=N, order=0))(data, ns, tab)
+            def batch(data, ns, tabs):
+                return jax.vmap(lambda d, n, t: rans_jax._encode_core(
+                    d, n, t, Kmax=Kmax, N=N, order=order))(data, ns, tabs)
 
-            f = self._fns[key] = jax.jit(batch0, in_shardings=(sh, sh, sh),
-                                         out_shardings=(sh, sh))
-        return f
-
-    def _fn_o1(self, Kmax: int, N: int):
-        key = (Kmax, N, 1, "v")
-        f = self._fns.get(key)
-        if f is None:
-            import jax
-            sh = self._NS(self.mesh, self._P("dp"))
-            empty = jax.numpy.zeros((256, 2), np.float32)
-
-            def batch1(data, ns, tab2):
-                return jax.vmap(lambda d, n, t2: rans_jax._encode_device_dyn(
-                    d, n, empty, t2, Kmax=Kmax, N=N, order=1))(data, ns, tab2)
-
-            f = self._fns[key] = jax.jit(batch1, in_shardings=(sh, sh, sh),
+            f = self._fns[key] = jax.jit(batch, in_shardings=(sh, sh, sh),
                                          out_shardings=(sh, sh))
         return f
 

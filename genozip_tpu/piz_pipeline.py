@@ -85,6 +85,8 @@ class PizReader:
             self._missing_ref = self.file_hdr["reference"]
         import threading
         self.io_lock = threading.Lock()
+        from . import codecs
+        self.device = codecs.device_coder()
         # per-component datatype instances (deep archives mix bam + fastq)
         segconf = self.file_hdr.get("segconf") or {}
         self.dts = []
@@ -136,9 +138,9 @@ class PizReader:
 
     def _load_ctx_sections(self, vb_i, comp_i, names=None):
         """Read B250/LOCAL payload arrays for a VB. Returns
-        {name: {'b250': arr|None, 'local': (arr, ltype)|None}}. With the
-        device-rANS batch enabled, a VB's big order-0 sections decode in
-        ONE kernel launch."""
+        {name: {'b250': arr|None, 'local': (arr, ltype)|None}}. With a
+        device coder (codecs.device_coder), the rANS streams of a VB's big
+        sections decode in one batched call."""
         from . import codecs
         raws = []
         for ent in self.zr.sections(vb_i=vb_i, comp_i=comp_i):
@@ -149,56 +151,24 @@ class PizReader:
                 continue
             comp, meta = self.zr.read_section_raw(ent)
             raws.append((ent, name, comp, meta))
-        # batched device decode of big RANS0 streams sharing a lane count
-        bmin = codecs.device_batch_min()
+        # batched device decode of the rANS streams of the VB's big sections
         payloads = {}
-        if bmin:
-            groups = {}
-            for i, (ent, name, comp, meta) in enumerate(raws):
-                if meta["codec"] in (codecs.RANS0, codecs.RANS1) and \
-                        meta["uncomp_len"] >= bmin and len(comp) > 6 and \
-                        comp[1] in (0, 1) and (1 << comp[0]) >= 128:
-                    groups.setdefault((comp[0], comp[1]), []).append(i)
-            from .ops import rans_pallas
-            for (logn, order), idxs in groups.items():
-                if order == 1 and len(idxs) >= 4:
-                    # o1 v6: stacked streams + palette-compacted rank-space
-                    # tables (small-alphabet QUAL); falls back per chunk
-                    # when an alphabet exceeds 128
-                    srt = sorted(idxs,
-                                 key=lambda i: -raws[i][3]["uncomp_len"])
-                    for j in range(0, len(srt), 16):
-                        chunk = srt[j:j + 16]
-                        R = 16 if len(chunk) > 8 else 8
-                        outs = rans_pallas.decode_many_o1_v6(
-                            [raws[i][2] for i in chunk], R=R)
-                        if outs is None:
-                            outs = rans_pallas.decode_many_o1(
-                                [raws[i][2] for i in chunk])
-                        for i, o in zip(chunk, outs):
-                            payloads[i] = o[: raws[i][3]["uncomp_len"]]
-                    continue
-                if order == 0 and len(idxs) >= 4:
-                    # v6 stacked-state kernel: R streams decode
-                    # CONCURRENTLY (1.16 GB/s agg at R=16, 1.62 at R=32 on
-                    # v5e); size-sorted chunks keep lane-block counts
-                    # similar within a launch
-                    srt = sorted(idxs,
-                                 key=lambda i: -raws[i][3]["uncomp_len"])
-                    for j in range(0, len(srt), 32):
-                        chunk = srt[j:j + 32]
-                        R = 32 if len(chunk) > 16 else \
-                            (16 if len(chunk) > 8 else 8)
-                        outs = rans_pallas.decode_many_v6(
-                            [raws[i][2] for i in chunk], R=R)
-                        for i, o in zip(chunk, outs):
-                            payloads[i] = o[: raws[i][3]["uncomp_len"]]
-                    continue
-                fn = rans_pallas.decode_many if order == 0 else \
-                    rans_pallas.decode_many_o1
-                outs = fn([raws[i][2] for i in idxs])
-                for i, o in zip(idxs, outs):
-                    payloads[i] = o[: raws[i][3]["uncomp_len"]]
+        if self.device is not None:
+            subs = {}
+            for i, (_, _, comp, meta) in enumerate(raws):
+                sub = codecs.rans_substream(comp, meta["codec"])
+                if sub is not None and len(sub[0]) >= 6 and \
+                        int.from_bytes(sub[0][2:6], "little") >= \
+                        codecs.DEVICE_MIN:
+                    subs[i] = sub
+            if subs:
+                with profiler.timer("piz:device-decode"):
+                    outs = self.device.decode_many(
+                        [sub[0] for sub in subs.values()])
+                for (i, (_, finish)), o in zip(subs.items(), outs):
+                    meta = raws[i][3]
+                    payloads[i] = codecs.checked(
+                        finish(o), meta["codec"], meta["uncomp_len"])
         out = {}
         for i, (ent, name, comp, meta) in enumerate(raws):
             payload = payloads.get(i)
@@ -431,7 +401,8 @@ def piz_file(z_path: str, out_path: str | None = None,
                 from . import native
                 lib_kind = (mg or {}).get("lib", "zlib")
                 if mg and mg.get("exact") and isz_payload is not None and \
-                        (lib_kind == "zlib" or native.available()):
+                        (lib_kind == "zlib" or (native.available() and
+                                                native.has_libdeflate())):
                     # byte-exact re-emission, any discovered gz dialect +
                     # writer library (reference --bgzf=exact, mgzip.h matrix)
                     isizes = np.frombuffer(isz_payload, "<u4")

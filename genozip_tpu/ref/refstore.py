@@ -3,7 +3,7 @@ in-memory genome representation.
 
 Reference parity: src/ref_make.c (FASTA -> 2-bit genome), src/reference.c
 (genome store), src/refhash_make.c (kmer->GPOS seed table), src/ref_contigs.c
-(contig catalog), src/ref_iupacs.c (non-ACGT exceptions). TPU-first redesign:
+(contig catalog), src/ref_iupacs.c (non-ACGT exceptions). Vectorized redesign:
 the genome is a flat code array (2-bit packed on disk, bytes in RAM, u32-packed
 on device); the refhash is a single power-of-two open-addressed table built
 with one vectorized first-wins scatter (the reference's multi-layer

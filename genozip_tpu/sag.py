@@ -4,7 +4,7 @@ against their primary.
 Reference parity: src/sam_sag_ingest.c:105-310 sam_zip_prim_ingest_vb (PRIM
 SEQ/QUAL/QNAME ingested into z-file-wide buffers), src/sam_sag_load.c (PIZ
 loads SAGs before reconstruction), src/gencomp_zip.c (PRIM/DEPN generated
-components). TPU-first redesign: primaries-with-dependents are deported to
+components). Vectorized redesign: primaries-with-dependents are deported to
 their own PRIM component (identified by a vectorized qname-hash prescan);
 the store is built from that component's text identically at ZIP and PIZ, so
 DEPN rows need only a store index + match flags — SEQ/QUAL reconstruct by
@@ -225,7 +225,7 @@ class SagStore:
     SEQ is held 2-bit-packed with a non-ACGT exception channel and QUAL
     palette-bit-packed (typical binned QUAL has <=16 symbols -> 2-4 bits),
     both materialized per requested row only — a fixed-width bit-pack is
-    random-access, which is exactly why the TPU build uses it where the
+    random-access, which is exactly why this engine uses it where the
     byte-serial reference uses canonical huffman. The qname->row index is
     a sorted-hash join (vectorized), with byte verification so a hash
     collision degrades to a miss (ratio), never a wrong match."""

@@ -2,7 +2,7 @@
 
 Reference parity: src/tokenizer.c (fallback field splitter), src/qname.c +
 src/qname_flavors.h (70 qname flavor templates), src/seg.c seg helpers.
-TPU-first redesign: instead of per-line flavor matching, a whole column is
+Vectorized redesign: instead of per-line flavor matching, a whole column is
 split in one pass into digit-runs and a *template* (digit runs replaced by a
 placeholder byte). Rows sharing a template hit the same dict word; numeric
 runs become per-position integer streams (delta-coded when monotonic). Rows

@@ -185,7 +185,7 @@ class BgzfBlockReader:
                 self.exact_level = ("zlib", lvl)
                 return self.exact_level
         from .. import native
-        if native.available():
+        if native.available() and native.has_libdeflate():
             for lvl in range(1, 13):
                 if native.raw_deflate(payload, lvl) == comp:
                     self.exact_level = ("libdeflate", lvl)

@@ -3,7 +3,7 @@
 Reference parity: src/writer.c:866 writer_create_plan (plan flavors
 src/sections.h:475-487: TXTHEADER / FULL_VB / RANGE / INTERLEAVE /
 DOWNSAMPLE / END_OF_VB) executed by one writer loop (writer_main_loop
-:1203). The TPU build's plan is a small list of typed items produced by
+:1203). This engine's plan is a small list of typed items produced by
 `build_plan` from the output flags and *edited* (trimmed VBs, ranges,
 steps) before execution — filters that the reference implements by plan
 editing (--head/--tail/--lines/--downsample/--regions VB skipping) become

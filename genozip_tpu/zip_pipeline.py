@@ -10,7 +10,6 @@ VBs by read count, byte-identical R2 sections are dropped ("pair-identical",
 zip.c:223-234) and R2 GPOS is delta-coded against R1's ("pair-assisted").
 """
 
-import os
 import time
 import zlib
 
@@ -52,6 +51,7 @@ class ZipJob:
         self.stats = ZipStats()
         self.ra_index = {}
         self.components = []
+        self.device = codecs.device_coder()
 
     def precommit_codecs(self, res):
         """Segconf codec pre-commitment (reference segconf.c:459 +
@@ -81,7 +81,7 @@ class ZipJob:
         build_vb consumes it when the main-thread codec decision agrees.
         Reads committed codecs without taking them — commit/counting stays
         in the ordered main-thread drain, so archives remain deterministic."""
-        pre = {}
+        pre, dev = {}, {}
         for name, c in res.ctxs.items():
             if c.local is None:
                 continue
@@ -94,12 +94,45 @@ class ZipJob:
             codec = g.local_codec
             arr = narrow_int(c.local) if c.mode == "num" else c.local
             payload = arr.tobytes()
+            if self._on_device(codec, payload):
+                dev[name] = (codec, arr, payload)
+                continue
             try:
                 blob = codecs.compress(payload, codec)
             except Exception:
                 continue
             pre[name] = (codec, arr, payload, blob)
+        if dev:
+            blobs = self._device_encode(
+                {name: (codec, payload) for name, (codec, _, payload)
+                 in dev.items()})
+            for name, (codec, arr, payload) in dev.items():
+                pre[name] = (codec, arr, payload, blobs[name])
         return pre
+
+    def _on_device(self, codec, payload) -> bool:
+        """Whether this section is offered to the device coder."""
+        return self.device is not None and codec in codecs.RANS_STAGED \
+            and len(payload) >= codecs.DEVICE_MIN
+
+    def _device_encode(self, entries):
+        """{key: (codec, payload)} -> {key: blob}: rANS streams of at least
+        DEVICE_MIN symbols go through one device call (streams equal the
+        host coder's), the rest compress on the host."""
+        out, dev = {}, {}
+        for key, (codec, payload) in entries.items():
+            stage = codecs.rans_stage(payload, codec)
+            if len(stage[0]) >= codecs.DEVICE_MIN:
+                dev[key] = stage
+            else:
+                out[key] = codecs.compress(payload, codec)
+        if dev:
+            with profiler.timer("zip:device-encode"):
+                streams = self.device.encode_many(
+                    [stage[:2] for stage in dev.values()])
+            for (key, stage), stream in zip(dev.items(), streams):
+                out[key] = stage[2](stream)
+        return out
 
     def write_vb(self, res, data, vb_i, comp_i, pair_payloads=None,
                  collect=False, pre_locals=None):
@@ -204,19 +237,11 @@ class ZipJob:
         pending = built["pending"]
         vb_i, comp_i = built["vb_i"], built["comp_i"]
         if precomp is None:
-            # batched device encoding: one kernel launch for the VB's big
-            # order-0 payloads (amortizes dispatch/transfer overhead)
-            precomp = {}
-            bmin = codecs.device_batch_min()
-            if bmin:
-                for order, cid in ((0, codecs.RANS0), (1, codecs.RANS1)):
-                    batch_idx = [i for i, e in enumerate(pending)
-                                 if e[3] == cid and len(e[2]) >= bmin
-                                 and e[7] is None]
-                    if batch_idx:
-                        blobs = codecs.compress_many_rans(
-                            [pending[i][2] for i in batch_idx], order)
-                        precomp.update(zip(batch_idx, blobs))
+            # the VB's big sections not coded by a seg worker (b250s, first
+            # sight) in one batch
+            precomp = self._device_encode(
+                {i: (e[3], e[2]) for i, e in enumerate(pending)
+                 if e[7] is None and self._on_device(e[3], e[2])})
 
         for i, (sec, name, payload, codec, ltype, flags, units, blob) in \
                 enumerate(pending):
@@ -362,13 +387,6 @@ def zip_file(in_path: str, out_path: str, dt_name: str | None = None,
     reader, dt, dt_name = _open_component(in_path, dt_name, reference,
                                           truncate=truncate)
     dt.optimize_enabled = optimize
-    # device rANS: default-on where an attached accelerator actually beats
-    # the native coder (probe cached per host; GXZ_DEVICE_RANS overrides).
-    # Only probe when a jax backend is already live or explicitly forced —
-    # initializing a backend just to reject it would claim the device.
-    import sys as _sys
-    if "jax" in _sys.modules or os.environ.get("GXZ_DEVICE_RANS"):
-        codecs.autotune_device_rans()
     if store_ref and getattr(dt, "ref", None) is not None:
         dt.ref.track_used = True  # REF_EXT_STORE usage tracking
     if mesh and getattr(dt, "ref", None) is not None:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""QNAME tokenizer ratio audit (VERDICT r4 item 7).
+"""QNAME tokenizer ratio audit.
 
 The reference ships 70 hand-written flavor templates
 (/root/reference/src/qname_flavors.h:1088); this build replaced them with

@@ -97,8 +97,7 @@ def test_mesh_fastq_zip_roundtrip(tmp_path):
 
 def test_dp_sharded_zip_byte_identical(tmp_path):
     """zip_file(dp=8): VBs data-parallel over the dp mesh axis; the archive
-    must equal the single-host archive byte-for-byte, and unzip losslessly
-    (VERDICT round-1 item 1)."""
+    must equal the single-host archive byte-for-byte, and unzip losslessly."""
     import os
     from genozip_tpu.zip_pipeline import zip_file
     from genozip_tpu.piz_pipeline import piz_file

@@ -65,7 +65,7 @@ def test_orient_involutive():
 
 
 def test_qual_ratio_win_on_realistic_corpus():
-    """VERDICT round-1 'done' bar: >=15% QUAL ratio win on a realistic
+    """Round-1 'done' bar: >=15% QUAL ratio win on a realistic
     (position+context-correlated) corpus vs plain order-1 coding."""
     seq, qual = synth_longread()
     base = len(compress(qual.data.tobytes(), RANS1))
